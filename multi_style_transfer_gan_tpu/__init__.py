@@ -1,31 +1,16 @@
-"""multi_style_transfer_gan_tpu — a TPU-native style-transfer GAN framework.
+"""The package's former name, kept so that existing imports and
+``python -m <former name>.cli.<tool>`` commands keep working.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability surface of the reference
-project ``regicide211212/multi-style-transfer-gan`` (a PyTorch Monet<->photo
-CycleGAN application; see SURVEY.md):
-
-- ``core``      — NN building blocks with PyTorch-compatible numerics
-                  (conv / conv-transpose / instance- & batch-norm / spectral
-                  norm / activations), NHWC layout, bf16-friendly.
-- ``models``    — the model zoo: plain encoder-decoder CycleGAN generator,
-                  the enhanced attention/transformer generator, the two-headed
-                  discriminator (reference: enhanced_generator.py, pretrain.py).
-- ``ops``       — image frontend + classical-CV ops in jnp (resize, canvas
-                  paste, color spaces, filters, edges, histogram ops) and
-                  Pallas TPU kernels for the hot paths.
-- ``parallel``  — mesh/sharding utilities: data-parallel over ICI, optional
-                  spatial sharding for large images.
-- ``data``      — host-side dataset with async device prefetch (the reference
-                  has a serial batch=1 loop; we batch + pipeline).
-- ``train``     — masked-inpainting pretraining and CycleGAN training
-                  (MSE-GAN + cycle/identity/structure losses) as pjit-able
-                  pure functions, optax optimizers, checkpointing.
-- ``pipelines`` — direct / batch / advanced(5-variant) / local-style /
-                  compare inference pipelines (reference CLI surface).
-- ``metrics``   — SSIM / PSNR / MSE / FID and Excel+chart reporting.
-- ``weights``   — PyTorch ``.pth`` checkpoint import/export and conversion
-                  (reference: convert_model.py, pth_info.py).
-- ``cli``       — flag-compatible command-line entry points.
+Every submodule resolves from ``multi_style_transfer_gan``'s directory.
+Import ``multi_style_transfer_gan`` instead; this alias warns once.
 """
 
-__version__ = "0.1.0"
+import warnings
+
+import multi_style_transfer_gan as _pkg
+
+warnings.warn(f"{__name__} was renamed to multi_style_transfer_gan; "
+              "import that instead", FutureWarning, stacklevel=2)
+
+__path__ = _pkg.__path__
+__version__ = _pkg.__version__

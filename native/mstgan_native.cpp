@@ -1,9 +1,9 @@
-// mstgan_native — native runtime components for the TPU style-transfer
+// mstgan_native — native runtime components for the style-transfer
 // framework.
 //
 // The reference project's "runtime" is per-image Python/PIL work inside its
 // batch loop (batch_process_images.py:186-238 and the dataset transform,
-// pretrain.py:32-37). This library is the TPU-native equivalent: the full
+// pretrain.py:32-37). This library is the native equivalent: the full
 // host side of the batch pipeline as native code —
 //
 //   input:  JPEG/PNG decode -> Lanczos-3 resize -> centered canvas paste,

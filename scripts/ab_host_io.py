@@ -1,15 +1,13 @@
 """A/B: host-side image I/O — PIL vs the native (libjpeg-turbo) loader.
 
-The end-to-end folder pipeline is host-bound on this single-core deployment
-(device: ~1285 img/s at 256^2; host PIL decode measured ~87 img/s in round 1).
+The end-to-end folder pipeline can be bound by host JPEG decode and encode.
 This harness measures, on one generated folder of realistic JPEGs:
 
   decode : bytes-on-disk -> 256^2 canvas uint8 batch
   save   : 256^2 canvas uint8 -> aspect-crop -> resize-back -> encode -> disk
   both   : the full host round trip (what bounds the real pipeline)
 
-Interleaved rounds, min-of-N, same-script — per the measurement rules in
-docs/PERFORMANCE.md.
+Interleaved rounds, min-of-N, same-script.
 
 Usage: python scripts/ab_host_io.py [--n 256] [--src 512] [--rounds 4]
 """
@@ -25,10 +23,10 @@ from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multi_style_transfer_gan_tpu.native import (  # noqa: E402
+from multi_style_transfer_gan.native import (  # noqa: E402
     available, decode_canvas_batch, save_canvas_batch,
 )
-from multi_style_transfer_gan_tpu.pipelines.batch import (  # noqa: E402
+from multi_style_transfer_gan.pipelines.batch import (  # noqa: E402
     _decode_canvas, _restore_and_save,
 )
 

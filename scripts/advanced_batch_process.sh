@@ -23,5 +23,5 @@ args=(--input_dir "$input" --output_dir "$output" --mode "$mode"
 [[ "$colors" == n* ]] && args+=(--no_enhance_colors)
 [[ "$smooth" == n* ]] && args+=(--no_smooth)
 
-echo "running: python -m multi_style_transfer_gan_tpu.cli.batch_process_images ${args[*]}"
-python -m multi_style_transfer_gan_tpu.cli.batch_process_images "${args[@]}"
+echo "running: python -m multi_style_transfer_gan.cli.batch_process_images ${args[*]}"
+python -m multi_style_transfer_gan.cli.batch_process_images "${args[@]}"

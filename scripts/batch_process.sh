@@ -3,7 +3,7 @@
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-PY="python -m multi_style_transfer_gan_tpu.cli.batch_process_images"
+PY="python -m multi_style_transfer_gan.cli.batch_process_images"
 
 echo "==============================================="
 echo " batch style-transfer menu"

@@ -24,11 +24,11 @@ the SHA256 prefix of the file — torchvision's integrity convention):
                  sha256 prefix 397923af (IMAGENET1K_V1)
 
 After conversion:
-  python -m multi_style_transfer_gan_tpu.cli.m_test --data_root ... \
-      --inception_weights weights/inception_v3_tpu.pth
+  python -m multi_style_transfer_gan.cli.m_test --data_root ... \
+      --inception_weights weights/inception_v3_jax.pth
   (FID then uses real InceptionV3 pool features, m_test.py parity.)
 For the optional VGG perceptual/Gram extension (train/perceptual.py):
-  cyclegan training --extra-loss hooks take weights/vgg16_tpu.pth.
+  cyclegan training --extra-loss hooks take weights/vgg16_jax.pth.
 """
 
 import argparse
@@ -51,7 +51,7 @@ SIGNATURE_KEYS = {
     # (train/perceptual.py _VGG16_CONVS); a full torchvision vgg16 has more
     "vgg16": ("features.0.weight", "features.21.bias"),
 }
-OUT_NAMES = {"inception": "inception_v3_tpu.pth", "vgg16": "vgg16_tpu.pth"}
+OUT_NAMES = {"inception": "inception_v3_jax.pth", "vgg16": "vgg16_jax.pth"}
 
 
 def sha256_of(path, limit=None):
@@ -93,7 +93,7 @@ def obtain_state_dict(model, src):
 
 def convert(model, sd, out_dir):
     """Validate keys, strip what the JAX port ignores, save importable .pth."""
-    from multi_style_transfer_gan_tpu.weights.torch_import import save_pth
+    from multi_style_transfer_gan.weights.torch_import import save_pth
 
     for k in SIGNATURE_KEYS[model]:
         if k not in sd:
@@ -138,7 +138,7 @@ def probe_report(feature_fn):
     probe FID between the two halves of the probe batch."""
     import numpy as np
 
-    from multi_style_transfer_gan_tpu.metrics.fid import fid_from_features
+    from multi_style_transfer_gan.metrics.fid import fid_from_features
 
     feats = np.asarray(feature_fn(probe_images()), np.float64)
     # tile each half to 3 rows so the 2048x2048 covariances are defined
@@ -155,7 +155,7 @@ def probe_report(feature_fn):
 
 _TORCH_RECIPE = """\
 # Reference recipe (run where torchvision IS installed) — must agree with
-# the numbers above to ~1e-3 relative (bilinear-resize kernels and MXU
+# the numbers above to ~1e-3 relative (bilinear-resize kernels and matmul
 # reassociation differ at that level). Mirrors m_test.py:16-34 exactly
 # (create_feature_extractor('avgpool') INCLUDES the pretrained model's
 # internal transform_input step; imagenet-normalize + transform_input
@@ -188,7 +188,7 @@ def validate(model, out_path):
     import numpy as np
 
     if model == "inception":
-        from multi_style_transfer_gan_tpu.metrics.inception import (
+        from multi_style_transfer_gan.metrics.inception import (
             make_inception_feature_fn,
         )
 
@@ -205,8 +205,8 @@ def validate(model, out_path):
         print(f"  probe FID(half0, half1) = {rep['probe_fid']:.6f}")
         print(_TORCH_RECIPE)
     else:
-        from multi_style_transfer_gan_tpu.weights.torch_import import load_pth
-        from multi_style_transfer_gan_tpu.train.perceptual import (
+        from multi_style_transfer_gan.weights.torch_import import load_pth
+        from multi_style_transfer_gan.train.perceptual import (
             vgg16_from_torchvision_sd, vgg16_features,
         )
 

@@ -30,8 +30,8 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=4)
     args = ap.parse_args(argv)
 
-    from multi_style_transfer_gan_tpu.pipelines import load_generator
-    from multi_style_transfer_gan_tpu.utils import enable_compilation_cache
+    from multi_style_transfer_gan.pipelines import load_generator
+    from multi_style_transfer_gan.utils import enable_compilation_cache
 
     enable_compilation_cache()
     os.makedirs(args.output_dir, exist_ok=True)

@@ -4,7 +4,7 @@ Usage:
     python scripts/make_synthetic_domains.py --root /tmp/synth_monet2photo \
         [--n_train 400] [--n_test 54] [--size 256] [--seed 0]
 
-See multi_style_transfer_gan_tpu/data/synthetic.py for the domain design
+See multi_style_transfer_gan/data/synthetic.py for the domain design
 (disjoint seed ranges = truly unpaired; test split ships ground truth).
 """
 
@@ -16,7 +16,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from multi_style_transfer_gan_tpu.data.synthetic import write_domains
+from multi_style_transfer_gan.data.synthetic import write_domains
 
 
 def main(argv=None):

@@ -59,8 +59,8 @@ def _stage_inputs(data_root, out_dir, max_images):
 
 def run_study(originals, cyclegan_model, enhanced_model, output_dir,
               batch_size=16, canvas=256):
-    from multi_style_transfer_gan_tpu.pipelines.batch import batch_process
-    from multi_style_transfer_gan_tpu.metrics.evaluation import (
+    from multi_style_transfer_gan.pipelines.batch import batch_process
+    from multi_style_transfer_gan.metrics.evaluation import (
         complete_comparison,
     )
 
@@ -114,11 +114,11 @@ def synthetic_smoke(output_dir=None, canvas=64, n_images=6, seed=0):
 
     import jax
 
-    from multi_style_transfer_gan_tpu.models import (
+    from multi_style_transfer_gan.models import (
         plain_generator_init, plain_generator_apply,
         enhanced_generator_init, enhanced_generator_apply,
     )
-    from multi_style_transfer_gan_tpu.pipelines.model_loader import LoadedModel
+    from multi_style_transfer_gan.pipelines.model_loader import LoadedModel
 
     td = output_dir or tempfile.mkdtemp(prefix="quality_study_")
     root = os.path.join(td, "monet2photo", "testB")
@@ -166,10 +166,10 @@ def main(argv=None):
         synthetic_smoke()
         return 0
 
-    from multi_style_transfer_gan_tpu.utils import enable_compilation_cache
+    from multi_style_transfer_gan.utils import enable_compilation_cache
 
     enable_compilation_cache()
-    from multi_style_transfer_gan_tpu.pipelines import load_generator
+    from multi_style_transfer_gan.pipelines import load_generator
 
     cyc_path = os.path.join(args.models_dir, "cyclegan_epoch_200.pth")
     enh_path = os.path.join(args.models_dir, "G_BA_epoch_200.pth")

@@ -1,6 +1,6 @@
 """Drive the ENTIRE product surface with a genuinely trained model.
 
-Round-4 protocol (VERDICT r3 item 1): after `cli.train` has produced real
+Protocol: after `cli.train` has produced real
 checkpoints at the deployed config (c16, one transformer block, 256^2) on
 the synthetic unpaired domains (data/synthetic.py), this harness pushes
 those weights through every user-facing surface the reference ships:
@@ -31,13 +31,11 @@ those weights through every user-facing surface the reference ships:
                             latency percentiles + img/s + /stats recorded
 
 Prints one summary JSON at the end; artifacts land under --output_dir.
-The int8 trained-weights A/B (VERDICT r3 item 2) is a separate chip run:
-scripts/ab_int8_engine.py --model <G_BA.pth> --images_dir <testB>.
 
-  PYTHONPATH=/root/repo:$PYTHONPATH python scripts/run_trained_surface.py \
-      --models_dir /root/data/run_r4/models --epoch 240 \
-      --data_root /root/data/synth_monet2photo \
-      --output_dir /root/data/run_r4/surface
+  python scripts/run_trained_surface.py \
+      --models_dir runs/r4/models --epoch 240 \
+      --data_root data/synth_monet2photo \
+      --output_dir runs/r4/surface
 """
 
 import argparse
@@ -82,8 +80,8 @@ def convert_roundtrip(stage_dir, out_dir):
     """convert_model + pth_info + re-import == original (tool surface)."""
     import jax.numpy as jnp
 
-    from multi_style_transfer_gan_tpu.cli import convert_model, pth_info
-    from multi_style_transfer_gan_tpu.pipelines import load_generator
+    from multi_style_transfer_gan.cli import convert_model, pth_info
+    from multi_style_transfer_gan.pipelines import load_generator
 
     src = os.path.join(stage_dir, "G_BA_epoch_200.pth")
     conv = os.path.join(out_dir, "converted_G_BA.pth")
@@ -102,7 +100,7 @@ def convert_roundtrip(stage_dir, out_dir):
 
 
 def run_batches(stage_dir, data_root, out_dir):
-    from multi_style_transfer_gan_tpu.cli import batch_process_images as bpi
+    from multi_style_transfer_gan.cli import batch_process_images as bpi
 
     testb = os.path.join(data_root, "testB")
     testa = os.path.join(data_root, "testA")
@@ -128,7 +126,7 @@ def run_batches(stage_dir, data_root, out_dir):
         t0 = time.time()
         argv = ["--input_dir", r["inp"], "--output_dir", sub,
                 "--mode", r["mode"], "--direction", r["direction"],
-                "--models_dir", stage_dir, "--bf16", "--fast_attention",
+                "--models_dir", stage_dir, "--bf16",
                 "--canvas", str(r["canvas"]),
                 "--local_style_mode", r.get("ls_mode", "enhanced")]
         rc = bpi.main(argv)
@@ -141,8 +139,8 @@ def run_batches(stage_dir, data_root, out_dir):
 
 def quality_study(data_root, out_dir):
     """The reference-shaped study + the ground-truth study."""
-    from multi_style_transfer_gan_tpu.cli import compare_image_quality as ciq
-    from multi_style_transfer_gan_tpu.metrics.evaluation import (
+    from multi_style_transfer_gan.cli import compare_image_quality as ciq
+    from multi_style_transfer_gan.metrics.evaluation import (
         complete_comparison,
     )
 
@@ -166,7 +164,7 @@ def quality_study(data_root, out_dir):
               "--output_dir", gt_dir])
 
     # headline numbers for the docs: raw output vs ground truth
-    from multi_style_transfer_gan_tpu.metrics.evaluation import (
+    from multi_style_transfer_gan.metrics.evaluation import (
         compare_folder_pair,
     )
 
@@ -184,7 +182,7 @@ def quality_study(data_root, out_dir):
 
 
 def fid_harness(stage_dir, data_root, out_dir):
-    from multi_style_transfer_gan_tpu.cli import m_test
+    from multi_style_transfer_gan.cli import m_test
 
     fid_dir = os.path.join(out_dir, "m_test")
     m_test.main(["--data_root", data_root,
@@ -198,8 +196,8 @@ def fid_harness(stage_dir, data_root, out_dir):
 
 
 def gui_compare(stage_dir, data_root, out_dir):
-    from multi_style_transfer_gan_tpu.pipelines import load_generator
-    from multi_style_transfer_gan_tpu.pipelines.compare import compare_models
+    from multi_style_transfer_gan.pipelines import load_generator
+    from multi_style_transfer_gan.pipelines.compare import compare_models
 
     enh = load_generator(os.path.join(stage_dir, "G_BA_epoch_200.pth"))
     cyc = load_generator(os.path.join(stage_dir, "cyclegan_epoch_200.pth"),
@@ -215,7 +213,7 @@ def advanced_variants(stage_dir, data_root, out_dir):
     """The 5-variant advanced_transform surface
     (advanced_transform.py:38-127): standard/contrast/multiscale/detail/
     local variants + the comparison grid, from the trained G_BA."""
-    from multi_style_transfer_gan_tpu.cli import advanced_transform
+    from multi_style_transfer_gan.cli import advanced_transform
 
     img = str(sorted(Path(data_root, "testB").iterdir())[0])
     adv_dir = os.path.join(out_dir, "advanced_variants")
@@ -233,7 +231,7 @@ def local_style_advanced(stage_dir, data_root, out_dir):
     """The segmentation-driven region-adaptive path
     (enhanced_local_style.py:178-292): from-scratch felzenszwalb
     superpixels + per-region blending, on the trained G_BA."""
-    from multi_style_transfer_gan_tpu.cli import enhanced_local_style
+    from multi_style_transfer_gan.cli import enhanced_local_style
 
     img = str(sorted(Path(data_root, "testB").iterdir())[1])
     out = os.path.join(out_dir, "local_style_advanced",
@@ -258,19 +256,14 @@ def serving_stage(stage_dir, data_root, out_dir, n_requests=24,
 
     import jax.numpy as jnp
 
-    from multi_style_transfer_gan_tpu.pipelines import load_generator
-    from multi_style_transfer_gan_tpu.serving import (
+    from multi_style_transfer_gan.pipelines import load_generator
+    from multi_style_transfer_gan.serving import (
         StyleTransferService, serve,
     )
 
-    import jax
-
     model = load_generator(os.path.join(stage_dir, "G_BA_epoch_200.pth"))
-    # Pallas kernels don't lower on the CPU backend (smoke runs)
-    fast = jax.default_backend() != "cpu"
     service = StyleTransferService(model, canvas=256, max_batch=8,
-                                   compute_dtype=jnp.bfloat16,
-                                   fast_attention=fast)
+                                   compute_dtype=jnp.bfloat16)
     server = serve(service, port=0)  # warmup=True compiles the batch shape
     host, port = server.server_address
     t = threading.Thread(target=server.serve_forever, daemon=True)
@@ -335,7 +328,7 @@ def main(argv=None):
                          "advanced,localadv,serving")
     args = ap.parse_args(argv)
 
-    from multi_style_transfer_gan_tpu.utils import enable_compilation_cache
+    from multi_style_transfer_gan.utils import enable_compilation_cache
     enable_compilation_cache()
 
     os.makedirs(args.output_dir, exist_ok=True)

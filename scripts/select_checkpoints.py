@@ -54,7 +54,7 @@ def forward_u8(apply_fn, inputs_u8, batch=8):
     import jax
     import jax.numpy as jnp
 
-    from multi_style_transfer_gan_tpu.ops import (
+    from multi_style_transfer_gan.ops import (
         from_model_range, to_model_range,
     )
 
@@ -76,7 +76,7 @@ def forward_u8(apply_fn, inputs_u8, batch=8):
 
 
 def mean_ssim(outs_u8, truth_u8):
-    from multi_style_transfer_gan_tpu.metrics.quality import compare_pair
+    from multi_style_transfer_gan.metrics.quality import compare_pair
 
     vals = [float(compare_pair(o.astype(np.float32) / 255.0,
                                t.astype(np.float32) / 255.0)["ssim"])
@@ -89,7 +89,7 @@ def soup_state_dict(paths, key):
     networks average cleanly — measured round 4)."""
     import torch
 
-    from multi_style_transfer_gan_tpu.weights import (
+    from multi_style_transfer_gan.weights import (
         extract_state_dict, load_pth,
     )
 
@@ -105,10 +105,10 @@ def soup_state_dict(paths, key):
 def apply_from_sd(sd):
     from functools import partial
 
-    from multi_style_transfer_gan_tpu.models import (
+    from multi_style_transfer_gan.models import (
         enhanced_generator_apply,
     )
-    from multi_style_transfer_gan_tpu.weights import (
+    from multi_style_transfer_gan.weights import (
         enhanced_generator_from_sd,
     )
 
@@ -129,8 +129,8 @@ def main(argv=None):
 
     import torch
 
-    from multi_style_transfer_gan_tpu.pipelines import load_generator
-    from multi_style_transfer_gan_tpu.utils import enable_compilation_cache
+    from multi_style_transfer_gan.pipelines import load_generator
+    from multi_style_transfer_gan.utils import enable_compilation_cache
 
     enable_compilation_cache()
 

@@ -30,14 +30,14 @@ def main():
     assert jax.local_device_count() == 4, jax.local_device_count()
     assert jax.device_count() == 4 * args.num_processes, jax.device_count()
 
-    from multi_style_transfer_gan_tpu.parallel import (
+    from multi_style_transfer_gan.parallel import (
         make_mesh_for_batch, data_sharding,
     )
-    from multi_style_transfer_gan_tpu.data.dataset import (
+    from multi_style_transfer_gan.data.dataset import (
         ImageFolderDataset, prefetch_to_device,
     )
-    from multi_style_transfer_gan_tpu.ops import to_model_range
-    from multi_style_transfer_gan_tpu.train.pretrain import (
+    from multi_style_transfer_gan.ops import to_model_range
+    from multi_style_transfer_gan.train.pretrain import (
         pretrain_init_state, pretrain_train_step,
     )
 

@@ -46,7 +46,7 @@ def env(tmp_path_factory):
 
 
 def test_pth_info(env, capsys):
-    from multi_style_transfer_gan_tpu.cli.pth_info import main
+    from multi_style_transfer_gan.cli.pth_info import main
 
     main([str(env / "gab.pth")])
     out = capsys.readouterr().out
@@ -54,7 +54,7 @@ def test_pth_info(env, capsys):
 
 
 def test_convert_model(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.convert_model import main
+    from multi_style_transfer_gan.cli.convert_model import main
 
     out = tmp_path / "flat.pth"
     main(["--input", str(env / "gab.pth"), "--output", str(out)])
@@ -63,7 +63,7 @@ def test_convert_model(env, tmp_path):
 
 
 def test_direct_transform_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.direct_transform import main
+    from multi_style_transfer_gan.cli.direct_transform import main
 
     out = tmp_path / "direct.png"
     main(["--image", str(env / "imgs" / "im0.png"),
@@ -73,7 +73,7 @@ def test_direct_transform_cli(env, tmp_path):
 
 
 def test_direct_transform_cli_spatial(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.direct_transform import main
+    from multi_style_transfer_gan.cli.direct_transform import main
 
     out = tmp_path / "direct_sp.png"
     main(["--image", str(env / "imgs" / "im0.png"),
@@ -83,7 +83,7 @@ def test_direct_transform_cli_spatial(env, tmp_path):
 
 
 def test_debug_model_cli(env, tmp_path, capsys):
-    from multi_style_transfer_gan_tpu.cli.debug_model import main
+    from multi_style_transfer_gan.cli.debug_model import main
 
     main(["--model", str(env / "gab.pth"),
           "--image", str(env / "imgs" / "im0.png"),
@@ -93,7 +93,7 @@ def test_debug_model_cli(env, tmp_path, capsys):
 
 
 def test_generate_new_image_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.generate_new_image import main
+    from multi_style_transfer_gan.cli.generate_new_image import main
 
     out = tmp_path / "gen.png"
     main(["--image", str(env / "imgs" / "im0.png"),
@@ -102,7 +102,7 @@ def test_generate_new_image_cli(env, tmp_path):
 
 
 def test_advanced_transform_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.advanced_transform import main
+    from multi_style_transfer_gan.cli.advanced_transform import main
 
     main(["--image", str(env / "imgs" / "im0.png"),
           "--model", str(env / "gab.pth"), "--output_dir", str(tmp_path),
@@ -112,7 +112,7 @@ def test_advanced_transform_cli(env, tmp_path):
 
 
 def test_enhanced_local_style_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.enhanced_local_style import main
+    from multi_style_transfer_gan.cli.enhanced_local_style import main
 
     out = tmp_path / "els.png"
     main(["--image", str(env / "imgs" / "im0.png"),
@@ -122,7 +122,7 @@ def test_enhanced_local_style_cli(env, tmp_path):
 
 
 def test_improved_smooth_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.improved_smooth import main
+    from multi_style_transfer_gan.cli.improved_smooth import main
 
     out = tmp_path / "smooth.png"
     main(["--input", str(env / "imgs" / "im0.png"),
@@ -132,7 +132,7 @@ def test_improved_smooth_cli(env, tmp_path):
 
 
 def test_compare_image_quality_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.compare_image_quality import main
+    from multi_style_transfer_gan.cli.compare_image_quality import main
 
     other = tmp_path / "variant"
     other.mkdir()
@@ -146,7 +146,7 @@ def test_compare_image_quality_cli(env, tmp_path):
 
 
 def test_image_quality_comparison_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.image_quality_comparison import main
+    from multi_style_transfer_gan.cli.image_quality_comparison import main
 
     other = tmp_path / "b"
     other.mkdir()
@@ -160,7 +160,7 @@ def test_image_quality_comparison_cli(env, tmp_path):
 
 
 def test_prepare_comparison_folders_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.prepare_comparison_folders import main
+    from multi_style_transfer_gan.cli.prepare_comparison_folders import main
 
     src = tmp_path / "src"
     src.mkdir()
@@ -172,7 +172,7 @@ def test_prepare_comparison_folders_cli(env, tmp_path):
 
 
 def test_pretrain_cli_one_epoch(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.pretrain import main
+    from multi_style_transfer_gan.cli.pretrain import main
 
     main(["--data_root", str(env / "data"), "--save_dir", str(tmp_path),
           "--num_epochs", "1", "--batch_size", "2", "--channels", "4",
@@ -187,7 +187,7 @@ def test_pretrain_cli_one_epoch(env, tmp_path):
 
 @pytest.mark.slow
 def test_m_test_cli(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.m_test import main
+    from multi_style_transfer_gan.cli.m_test import main
 
     main(["--data_root", str(env / "data"), "--g_ab", str(env / "gab.pth"),
           "--g_ba", str(env / "gba.pth"), "--output_dir", str(tmp_path),
@@ -196,10 +196,10 @@ def test_m_test_cli(env, tmp_path):
 
 
 def test_batch_process_images_cli(env, tmp_path):
-    """The batch CLI with the new TPU flags (bf16 + data-parallel mesh)."""
+    """The batch CLI with the added flags (bf16 + data-parallel mesh)."""
     import shutil
 
-    from multi_style_transfer_gan_tpu.cli.batch_process_images import main
+    from multi_style_transfer_gan.cli.batch_process_images import main
 
     models = tmp_path / "models"
     models.mkdir()
@@ -216,7 +216,7 @@ def test_batch_process_images_cli(env, tmp_path):
 
 @pytest.mark.slow
 def test_train_cli_one_epoch(env, tmp_path):
-    from multi_style_transfer_gan_tpu.cli.train import main
+    from multi_style_transfer_gan.cli.train import main
 
     main(["--data_root", str(env / "data"), "--save_dir", str(tmp_path),
           "--num_epochs", "1", "--batch_size", "2", "--channels", "4",
@@ -235,7 +235,7 @@ def test_train_cli_one_epoch(env, tmp_path):
 @pytest.mark.slow
 def test_train_cli_orbax_resume(env, tmp_path):
     """--resume_dir: full native resume (epoch advances, run completes)."""
-    from multi_style_transfer_gan_tpu.cli.train import main
+    from multi_style_transfer_gan.cli.train import main
 
     common = ["--data_root", str(env / "data"), "--save_dir", str(tmp_path),
               "--batch_size", "2", "--channels", "4",

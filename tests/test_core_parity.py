@@ -13,7 +13,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
-from multi_style_transfer_gan_tpu.core import (
+from multi_style_transfer_gan.core import (
     conv2d, conv_transpose2d, linear, instance_norm, batch_norm,
     spectral_normalize, leaky_relu,
 )
@@ -93,7 +93,7 @@ def test_instance_norm_onepass_matches_twopass(rng):
 
     Includes the worst cancellation case (mean >> std): divergence must
     stay at/below one bf16 ulp of the O(1) normalized output."""
-    from multi_style_transfer_gan_tpu.core.norm import instance_norm_onepass
+    from multi_style_transfer_gan.core.norm import instance_norm_onepass
 
     # fp32 error model: |d| ~ (mean^2/var) * eps_fp32 * |xhat| — negligible
     # at realistic activation scales, ~3e-2 at the pathological
@@ -117,7 +117,7 @@ def test_instance_norm_onepass_matches_twopass(rng):
 def test_in_relu_fused_gradients_match_autodiff(rng):
     """core.norm._in_act's hand-written VJP == XLA autodiff of the
     unfused relu(instance_norm(x)) / leaky_relu(instance_norm(x))."""
-    from multi_style_transfer_gan_tpu.core import norm as cn
+    from multi_style_transfer_gan.core import norm as cn
 
     x = jnp.asarray(rng.standard_normal((2, 12, 12, 6), dtype=np.float32)
                     * 1.7 + 0.4)
@@ -218,7 +218,7 @@ def test_spectral_norm_matches_torch(rng):
 ])
 def test_conv_transpose2d_d2s_matches_transposed_conv(rng, cin, cout, hw):
     """The depth-to-space phase rewrite is math-exact for k=4, s=2, p=1."""
-    from multi_style_transfer_gan_tpu.core.conv import conv_transpose2d_d2s
+    from multi_style_transfer_gan.core.conv import conv_transpose2d_d2s
 
     x = rng.standard_normal((2, *hw, cin), dtype=np.float32)
     w = rng.standard_normal((4, 4, cin, cout), dtype=np.float32) * 0.1

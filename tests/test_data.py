@@ -8,10 +8,10 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from multi_style_transfer_gan_tpu.data import (
+from multi_style_transfer_gan.data import (
     ImageFolderDataset, prefetch_to_device, random_patch_mask,
 )
-from multi_style_transfer_gan_tpu.parallel import make_mesh, data_sharding
+from multi_style_transfer_gan.parallel import make_mesh, data_sharding
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +85,7 @@ def test_random_patch_mask_law():
 def test_make_mesh_for_batch_multihost_validation(monkeypatch):
     # multi-host pods must not silently drop devices (every process needs
     # addressable shards for make_array_from_process_local_data)
-    from multi_style_transfer_gan_tpu.parallel import make_mesh_for_batch
+    from multi_style_transfer_gan.parallel import make_mesh_for_batch
 
     monkeypatch.setattr(jax, "process_count", lambda: 2)
     with pytest.raises(ValueError, match="divisible"):

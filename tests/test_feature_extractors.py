@@ -21,7 +21,7 @@ def inception_sd():
 
 
 def test_inception_pool_features_parity(inception_sd):
-    from multi_style_transfer_gan_tpu.metrics.inception import (
+    from multi_style_transfer_gan.metrics.inception import (
         inception_from_torch_sd, inception_pool_features,
     )
 
@@ -41,7 +41,7 @@ def test_inception_pool_features_parity(inception_sd):
 
 
 def test_inception_importer_skips_head_keys(inception_sd):
-    from multi_style_transfer_gan_tpu.metrics.inception import (
+    from multi_style_transfer_gan.metrics.inception import (
         inception_from_torch_sd,
     )
 
@@ -57,8 +57,8 @@ def test_inception_importer_skips_head_keys(inception_sd):
 def test_make_inception_feature_fn_end_to_end(inception_sd, tmp_path):
     """.pth on disk -> feature_fn -> FID of a folder pair (resize path +
     harness integration)."""
-    from multi_style_transfer_gan_tpu.metrics.fid import fid_from_features
-    from multi_style_transfer_gan_tpu.metrics.inception import (
+    from multi_style_transfer_gan.metrics.fid import fid_from_features
+    from multi_style_transfer_gan.metrics.inception import (
         make_inception_feature_fn,
     )
 
@@ -81,7 +81,7 @@ def test_make_inception_feature_fn_end_to_end(inception_sd, tmp_path):
 
 
 def test_vgg16_features_parity():
-    from multi_style_transfer_gan_tpu.train.perceptual import (
+    from multi_style_transfer_gan.train.perceptual import (
         vgg16_features, vgg16_from_torchvision_sd,
     )
 
@@ -103,7 +103,7 @@ def test_vgg16_features_parity():
 
 
 def test_perceptual_and_gram_losses():
-    from multi_style_transfer_gan_tpu.train.perceptual import (
+    from multi_style_transfer_gan.train.perceptual import (
         gram_matrix, perceptual_loss, vgg16_from_torchvision_sd,
         gram_style_loss,
     )

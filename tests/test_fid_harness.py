@@ -10,8 +10,8 @@ from PIL import Image
 
 import torch_oracle as oracle
 
-from multi_style_transfer_gan_tpu.pipelines import load_generator
-from multi_style_transfer_gan_tpu.metrics.fid_harness import run_fid_eval
+from multi_style_transfer_gan.pipelines import load_generator
+from multi_style_transfer_gan.metrics.fid_harness import run_fid_eval
 
 
 @pytest.mark.slow

@@ -3,7 +3,7 @@
 import hashlib
 import json
 
-from multi_style_transfer_gan_tpu.gui import auth
+from multi_style_transfer_gan.gui import auth
 
 
 def test_register_login_roundtrip(tmp_path):

@@ -9,7 +9,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from multi_style_transfer_gan_tpu.ops.gui_effects import gui_local_style_blend
+from multi_style_transfer_gan.ops.gui_effects import gui_local_style_blend
 
 
 def _reference_gui_blend(orig_np, styled_np, strength, detail,

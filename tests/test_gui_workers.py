@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from multi_style_transfer_gan_tpu.gui.app import (
+from multi_style_transfer_gan.gui.app import (
     _process_cyclegan, _process_local, _process_standard,
 )
 
@@ -76,7 +76,7 @@ def test_process_cyclegan(img_path, tmp_path):
 def test_thumb_headless_returns_none(img_path):
     # without a Tk root / display, preview rendering degrades to None
     # instead of raising into the worker thread
-    from multi_style_transfer_gan_tpu.gui.app import _thumb
+    from multi_style_transfer_gan.gui.app import _thumb
 
     _thumb(img_path)  # must not raise even with no display
     assert _thumb("/nonexistent.png") is None
@@ -125,11 +125,11 @@ def test_model_info_text_headless():
     per-model load state, family, width, parameter/tensor counts."""
     import jax
 
-    from multi_style_transfer_gan_tpu.gui.app import (
+    from multi_style_transfer_gan.gui.app import (
         ModelManager, model_info_text,
     )
-    from multi_style_transfer_gan_tpu.models import enhanced_generator_init
-    from multi_style_transfer_gan_tpu.pipelines.model_loader import (
+    from multi_style_transfer_gan.models import enhanced_generator_init
+    from multi_style_transfer_gan.pipelines.model_loader import (
         LoadedModel,
     )
 

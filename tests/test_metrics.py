@@ -11,10 +11,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from multi_style_transfer_gan_tpu.metrics import (
+from multi_style_transfer_gan.metrics import (
     mse, psnr, ssim, compare_pair, fid_from_features, frechet_distance,
 )
-from multi_style_transfer_gan_tpu.metrics.report import write_xlsx
+from multi_style_transfer_gan.metrics.report import write_xlsx
 
 
 def _ssim_numpy(a, b, data_range=1.0, win=7, K1=0.01, K2=0.03):
@@ -128,7 +128,7 @@ def test_write_xlsx_numpy_scalars(tmp_path):
 
 
 def test_complete_comparison_no_common_images(tmp_path):
-    from multi_style_transfer_gan_tpu.metrics.evaluation import (
+    from multi_style_transfer_gan.metrics.evaluation import (
         complete_comparison,
     )
     from PIL import Image as _Image
@@ -144,7 +144,7 @@ def test_complete_comparison_no_common_images(tmp_path):
 
 
 def test_compare_image_quality_same_basename(tmp_path):
-    from multi_style_transfer_gan_tpu.metrics.evaluation import (
+    from multi_style_transfer_gan.metrics.evaluation import (
         compare_image_quality,
     )
     from PIL import Image as _Image
@@ -163,3 +163,19 @@ def test_compare_image_quality_same_basename(tmp_path):
         dirs.append(str(d))
     out = compare_image_quality(str(base), dirs, output_dir=str(tmp_path))
     assert len(out["results"]) == 2  # both folders reported, not overwritten
+
+
+@pytest.mark.gpu
+def test_ssim_on_gpu_matches_cpu(gpu):
+    """The SSIM program compiled for the card agrees with the CPU backend."""
+    import jax
+
+    from multi_style_transfer_gan.metrics.quality import ssim
+
+    rng = np.random.default_rng(3)
+    a = rng.random((2, 64, 64, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    cpu = jax.devices("cpu")[0]
+    on_gpu = np.asarray(ssim(jax.device_put(a, gpu), jax.device_put(b, gpu)))
+    on_cpu = np.asarray(ssim(jax.device_put(a, cpu), jax.device_put(b, cpu)))
+    np.testing.assert_allclose(on_gpu, on_cpu, atol=1e-4, rtol=0)

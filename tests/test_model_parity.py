@@ -11,10 +11,10 @@ import torch
 
 import jax.numpy as jnp
 
-from multi_style_transfer_gan_tpu.models import (
+from multi_style_transfer_gan.models import (
     plain_generator_apply, enhanced_generator_apply, discriminator_apply,
 )
-from multi_style_transfer_gan_tpu.weights import (
+from multi_style_transfer_gan.weights import (
     load_pth, save_pth, extract_state_dict, detect_model_kind,
     detect_channels, plain_generator_from_sd, enhanced_generator_from_sd,
     discriminator_from_sd, convert_model,
@@ -120,8 +120,8 @@ def test_enhanced_generator_ssim_vs_torch(rng):
     """BASELINE.json import criterion: SSIM >= 0.99 vs the PyTorch reference
     output after .pth weight import (measured with our own SSIM kernel on
     the [0,1] images a user would save)."""
-    from multi_style_transfer_gan_tpu.metrics.quality import ssim
-    from multi_style_transfer_gan_tpu.ops import from_model_range
+    from multi_style_transfer_gan.metrics.quality import ssim
+    from multi_style_transfer_gan.ops import from_model_range
 
     sd = oracle.make_enhanced_sd(rng, c=16, num_blocks=1)
     params = enhanced_generator_from_sd(sd)
@@ -149,11 +149,11 @@ def test_enhanced_generator_padded_token_grid(rng):
 def test_non_multiple_of_32_channel_width():
     """channels=28 -> transformer dim 112: head count must divide the dim
     (max(1, dim//32)=3 does not divide 112 and used to crash split_heads)."""
-    from multi_style_transfer_gan_tpu.models.structural_transformer import (
+    from multi_style_transfer_gan.models.structural_transformer import (
         default_num_heads,
     )
 
-    from multi_style_transfer_gan_tpu.models import enhanced_generator_init
+    from multi_style_transfer_gan.models import enhanced_generator_init
     import jax
 
     assert default_num_heads(112) == 2
@@ -170,8 +170,8 @@ def test_import_detect_fuzz_widths(rng, tmp_path, c):
     """Importer fuzz: arbitrary channel widths round-trip through every
     checkpoint flavor with correct kind/width detection and a working
     forward (widths are auto-detected in the wild, direct_transform:25-30)."""
-    from multi_style_transfer_gan_tpu.pipelines import load_generator
-    from multi_style_transfer_gan_tpu.weights import (
+    from multi_style_transfer_gan.pipelines import load_generator
+    from multi_style_transfer_gan.weights import (
         detect_channels, detect_model_kind, extract_state_dict, load_pth,
     )
 

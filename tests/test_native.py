@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from multi_style_transfer_gan_tpu.native import (
+from multi_style_transfer_gan.native import (
     available, decode_canvas_batch, felzenszwalb_native,
 )
 
@@ -37,7 +37,7 @@ def test_decode_canvas_batch_matches_pil(tmp_path, structured_img):
     assert batch.shape == (2, 256, 256, 3)
     assert sizes == [(160, 120), (100, 120)]
 
-    from multi_style_transfer_gan_tpu.pipelines.batch import _decode_canvas
+    from multi_style_transfer_gan.pipelines.batch import _decode_canvas
 
     ref, _ = _decode_canvas(paths[0], 256, 255)
     diff = np.abs(batch[0].astype(int) - ref.astype(int))
@@ -54,7 +54,7 @@ def test_decode_fallback_for_bmp(tmp_path, structured_img):
 
 
 def test_felzenszwalb_native_matches_python(structured_img):
-    from multi_style_transfer_gan_tpu.ops.segmentation import (
+    from multi_style_transfer_gan.ops.segmentation import (
         _gaussian_smooth, felzenszwalb,
     )
 
@@ -72,7 +72,7 @@ def test_felzenszwalb_native_matches_python(structured_img):
 
 
 def test_native_lanczos_resize_matches_pil():
-    from multi_style_transfer_gan_tpu.native import available, lanczos_resize
+    from multi_style_transfer_gan.native import available, lanczos_resize
 
     if not available():
         import pytest
@@ -92,8 +92,8 @@ def test_native_lanczos_resize_matches_pil():
 def test_native_save_canvas_batch_matches_pil(tmp_path, structured_img, rng):
     """Native save = aspect-crop + resize-back + encode (restore_aspect
     semantics, batch_process_images.py:412-438)."""
-    from multi_style_transfer_gan_tpu.native import save_canvas_batch
-    from multi_style_transfer_gan_tpu.ops import restore_aspect
+    from multi_style_transfer_gan.native import save_canvas_batch
+    from multi_style_transfer_gan.ops import restore_aspect
 
     # smooth gradients: JPEG loss (esp. 4:2:0 chroma) stays small, so the
     # comparison isolates the crop/resize geometry, not codec noise
@@ -117,7 +117,7 @@ def test_native_save_canvas_batch_matches_pil(tmp_path, structured_img, rng):
 
 
 def test_native_save_unknown_extension_falls_back(tmp_path, rng):
-    from multi_style_transfer_gan_tpu.native import save_canvas_batch
+    from multi_style_transfer_gan.native import save_canvas_batch
 
     styled = rng.integers(0, 256, (1, 128, 128, 3)).astype(np.uint8)
     ok = save_canvas_batch(styled, [(128, 128)], [str(tmp_path / "x.bmp")])
@@ -137,7 +137,7 @@ def test_scaled_jpeg_decode_close_to_full(tmp_path, rng):
     batch, sizes, ok = decode_canvas_batch([str(p)], 256, 255)
     assert ok.all() and sizes == [(512, 640)]
 
-    from multi_style_transfer_gan_tpu.pipelines.batch import _decode_canvas
+    from multi_style_transfer_gan.pipelines.batch import _decode_canvas
 
     ref, _ = _decode_canvas(str(p), 256, 255)
     diff = np.abs(batch[0].astype(int) - ref.astype(int))

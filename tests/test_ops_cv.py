@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import cv2
 from scipy.ndimage import gaussian_filter as scipy_gauss
 
-from multi_style_transfer_gan_tpu.ops.color import (
+from multi_style_transfer_gan.ops.color import (
     rgb_to_gray, rgb_to_hsv, hsv_to_rgb, rgb_to_yuv, yuv_to_rgb, rgb_to_lab,
 )
-from multi_style_transfer_gan_tpu.ops.filters import (
+from multi_style_transfer_gan.ops.filters import (
     gaussian_blur, gaussian_filter, sobel, dilate, erode, median_blur3,
     convert_scale_abs, equalize_hist, bilateral_filter, guided_filter, canny,
     box_filter,

@@ -6,7 +6,7 @@ from PIL import Image
 
 import jax.numpy as jnp
 
-from multi_style_transfer_gan_tpu.ops import (
+from multi_style_transfer_gan.ops import (
     canvas_paste, resize_center_crop, aspect_crop_bounds,
     to_model_range, from_model_range,
 )

@@ -16,7 +16,7 @@ from scipy.ndimage import gaussian_filter as nd_gaussian
 
 import jax.numpy as jnp
 
-from multi_style_transfer_gan_tpu.pipelines.batch import _postprocess
+from multi_style_transfer_gan.pipelines.batch import _postprocess
 
 
 def _reference_enhanced(original_np, styled_np, strength, detail,

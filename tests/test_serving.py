@@ -11,11 +11,11 @@ from PIL import Image
 
 import jax
 
-from multi_style_transfer_gan_tpu.models import (
+from multi_style_transfer_gan.models import (
     enhanced_generator_apply, enhanced_generator_init,
 )
-from multi_style_transfer_gan_tpu.pipelines.model_loader import LoadedModel
-from multi_style_transfer_gan_tpu.serving import (
+from multi_style_transfer_gan.pipelines.model_loader import LoadedModel
+from multi_style_transfer_gan.serving import (
     MicroBatcher, StyleTransferService, serve,
 )
 
@@ -127,7 +127,7 @@ def test_http_server_end_to_end(model):
 
 
 def test_overload_shedding():
-    from multi_style_transfer_gan_tpu.serving import Overloaded
+    from multi_style_transfer_gan.serving import Overloaded
 
     release = threading.Event()
     started = threading.Event()

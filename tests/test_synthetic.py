@@ -10,7 +10,7 @@ and a transform that is substantial but local.
 import numpy as np
 import pytest
 
-from multi_style_transfer_gan_tpu.data.synthetic import (
+from multi_style_transfer_gan.data.synthetic import (
     monetize, render_photo, write_domains,
 )
 

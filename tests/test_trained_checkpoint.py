@@ -3,9 +3,8 @@
 Pins the WHOLE import -> build -> forward chain on genuinely trained
 weights (docs/TRAINED_STUDY.md): a deterministic synthetic probe scene
 through G_BA must reproduce the committed fp16 golden to cross-platform
-conv tolerance. Random-init parity tests can miss scale-dependent bugs
-(the int8 engine's trained-weights collapse was invisible at random
-init); this one can't.
+conv tolerance. Random-init parity tests can miss scale-dependent bugs;
+this one can't.
 """
 
 import numpy as np
@@ -22,11 +21,11 @@ def test_trained_checkpoint_forward_matches_golden():
 
     for p in (TRAINED, GOLDEN):
         assert os.path.exists(p), f"missing committed artifact {p}"
-    from multi_style_transfer_gan_tpu.data.synthetic import render_photo
-    from multi_style_transfer_gan_tpu.ops import (
+    from multi_style_transfer_gan.data.synthetic import render_photo
+    from multi_style_transfer_gan.ops import (
         from_model_range, to_model_range,
     )
-    from multi_style_transfer_gan_tpu.pipelines.model_loader import (
+    from multi_style_transfer_gan.pipelines.model_loader import (
         load_generator,
     )
 

@@ -28,11 +28,11 @@ def test_fetch_script_converts_inception(tmp_path):
     torch.save(sd, str(src))
     ffw.main(["--model", "inception", "--src", str(src),
               "--out", str(tmp_path), "--no_validate"])
-    out = tmp_path / "inception_v3_tpu.pth"
+    out = tmp_path / "inception_v3_jax.pth"
     assert out.exists()
 
-    from multi_style_transfer_gan_tpu.weights import load_pth
-    from multi_style_transfer_gan_tpu.metrics.inception import (
+    from multi_style_transfer_gan.weights import load_pth
+    from multi_style_transfer_gan.metrics.inception import (
         inception_from_torch_sd, inception_pool_features,
     )
 
@@ -51,11 +51,11 @@ def test_fetch_script_converts_vgg16(tmp_path):
     torch.save(sd, str(src))
     ffw.main(["--model", "vgg16", "--src", str(src), "--out", str(tmp_path),
               "--no_validate"])
-    out = tmp_path / "vgg16_tpu.pth"
+    out = tmp_path / "vgg16_jax.pth"
     assert out.exists()
 
-    from multi_style_transfer_gan_tpu.weights import load_pth
-    from multi_style_transfer_gan_tpu.train.perceptual import (
+    from multi_style_transfer_gan.weights import load_pth
+    from multi_style_transfer_gan.train.perceptual import (
         vgg16_from_torchvision_sd, vgg16_features,
     )
 
@@ -77,11 +77,11 @@ def test_validation_contract_probe_is_deterministic(tmp_path):
     ffw.main(["--model", "inception", "--src", str(src),
               "--out", str(tmp_path), "--no_validate"])
 
-    from multi_style_transfer_gan_tpu.metrics.inception import (
+    from multi_style_transfer_gan.metrics.inception import (
         make_inception_feature_fn,
     )
 
-    fn = make_inception_feature_fn(str(tmp_path / "inception_v3_tpu.pth"))
+    fn = make_inception_feature_fn(str(tmp_path / "inception_v3_jax.pth"))
     a = ffw.probe_report(fn)
     b = ffw.probe_report(fn)
     assert a == b
@@ -121,7 +121,7 @@ def _fid_scipy(fa, fb):
 
 
 def test_fid_matches_scipy_reference():
-    from multi_style_transfer_gan_tpu.metrics.fid import fid_from_features
+    from multi_style_transfer_gan.metrics.fid import fid_from_features
 
     rng = np.random.default_rng(0)
     base = rng.normal(0, 1, (256, 32))
@@ -133,7 +133,7 @@ def test_fid_matches_scipy_reference():
 
 
 def test_fid_identities():
-    from multi_style_transfer_gan_tpu.metrics.fid import (
+    from multi_style_transfer_gan.metrics.fid import (
         fid_from_features, frechet_distance,
     )
 
